@@ -1,10 +1,10 @@
-"""rayz_tpu — a TPU-native differentiable path tracer in JAX/XLA/Pallas.
+"""rayz_tpu — a differentiable path tracer in JAX/XLA/Pallas for the GPU.
 
-Brand-new framework with the capability set of the Zig CPU ray tracer
-``jlucier/rayz`` (see SURVEY.md), redesigned TPU-first: flat SoA scenes,
-matmul-formulated intersection, masked material dispatch, a fixed-depth scan
-integrator differentiable in reverse mode, image-tile sharding over device
-meshes, and Pallas kernels on the hot path.
+A framework with the capability set of the Zig CPU ray tracer
+``jlucier/rayz`` (see SURVEY.md): flat SoA scenes, dense elementwise
+intersection, masked material dispatch, a fixed-depth scan integrator
+differentiable in reverse mode, pixel sharding over device meshes, and a
+fused Pallas (Triton) path-trace kernel for the forward pass.
 """
 
 from .models import (
@@ -15,8 +15,8 @@ from .models import (
     make_camera,
 )
 from .models import scenes
-from .ops import (RenderConfig, render, render_diff, render_diff_pp, render_fast, render_jit,
-                  render_pallas, render_pallas_sharded, trace_rays)
+from .ops import (RenderConfig, render, render_fast, render_jit, render_pallas,
+                  render_pallas_sharded, trace_rays)
 from .io import read_ppm, to_u8, write_png, write_ppm
 
 __version__ = "0.1.0"
@@ -32,8 +32,6 @@ __all__ = [
     "render",
     "render_jit",
     "render_fast",
-    "render_diff",
-    "render_diff_pp",
     "render_pallas",
     "render_pallas_sharded",
     "trace_rays",

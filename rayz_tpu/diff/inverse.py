@@ -27,8 +27,6 @@ overlap with the backward sweep.
 
 from __future__ import annotations
 
-import dataclasses
-from functools import partial
 from typing import Dict, Optional, Sequence, Tuple
 
 import jax
@@ -43,9 +41,6 @@ except ImportError:  # pragma: no cover
 
 from ..models.camera import Camera
 from ..models.scene import Scene
-from ..ops.diffkernel import (default_interpret, fits_smem_record,
-                              render_diff, render_diff_flat, supports_diff)
-from ..ops.pathrec import render_diff_pp, render_diff_pp_flat
 from ..ops.integrator import RenderConfig, render, _pixel_grid
 from ..parallel.mesh import _render_shard
 
@@ -82,197 +77,72 @@ def inject_params(scene: Scene, params: Dict[str, jnp.ndarray]) -> Scene:
     return scene.replace(**params)
 
 
-#: Per-bounce one-hot budget for the streamed-record replay: the XLA replay
-#: materializes an [R, P] one-hot in HBM, so engine="recorded" on a
-#: beyond-SMEM scene is allowed only while R * P * 4 bytes stays under this.
-REPLAY_ONEHOT_BUDGET = 512 * 1024 * 1024
+#: Gradient engines. "dense" differentiates through the XLA scan integrator.
+GRAD_ENGINES = ("dense",)
 
 
-def _scene_rows(scene: Scene) -> int:
-    n = int(scene.sphere_radius.shape[0]) if scene.n_spheres > 0 else 0
-    m = int(scene.tri_material.shape[0]) if scene.n_triangles > 0 else 0
-    return n + m
-
-
-def _check_recordable(scene: Scene, engine: str, allow_dense: bool,
-                      n_px: Optional[int] = None) -> bool:
-    """Static (trace-time) gate for the recorded engines. Returns True when
-    the record kernel can run ``scene``; otherwise RAISES unless the caller
-    opted into the dense fallback with ``allow_dense=True``, in which case
-    it warns and returns False. The recorded->dense degrade is a ~100x
-    asymptotic slowdown (O(R) -> O(R*N) backward) or an OOM, not a same-cost
-    engine swap, so it must never happen silently (round-4 verdict #3 —
-    the same never-silently discipline as pathrec's leftover counter).
-
-    Beyond the record kernel's ~13k-primitive SMEM budget the bounce-indexed
-    recorder STREAMS its tables (round 5, diffkernel.record_paths), so
-    ``engine="recorded"`` stays available as long as the replay's per-bounce
-    [R, P] one-hot stays under ``REPLAY_ONEHOT_BUDGET`` — big scenes with
-    small inverse-rendering targets train today; big scenes at full-image
-    ray counts still need the Pallas gather lift (PERF.md)."""
-    if engine not in ("recorded", "recorded-pp"):
-        return False
-    if fits_smem_record(scene) and supports_diff(scene):
-        return True
-    if (engine == "recorded" and supports_diff(scene) and n_px is not None
-            and 4 * n_px * _scene_rows(scene) <= REPLAY_ONEHOT_BUDGET):
-        return True  # streamed record + affordable replay
-    if not supports_diff(scene):
-        why = ("the scene is empty or uses nested checker textures, which "
-               "the record/replay estimator does not shade exactly")
-    elif engine == "recorded-pp":
-        why = ("the scene exceeds ~13k primitives; the persistent-path "
-               "recorder cannot stream (PERF.md bandwidth wall) — use "
-               "engine='recorded', whose kernel streams, if the image is "
-               "small enough for its replay")
-    else:
-        why = ("the scene exceeds ~13k primitives and the image has too "
-               "many pixels for the streamed-record replay's [R, P] "
-               "one-hot (budget 512 MB per bounce)")
-    msg = (f"engine={engine!r} cannot record this scene: {why}. ")
-    if not allow_dense:
-        raise ValueError(
-            msg + "Pass allow_dense=True to fall back to the dense "
-            "differentiable integrator (O(R*N) backward — typically ~100x "
-            "slower and memory-hungry), or use engine='dense' explicitly.")
-    import warnings
-
-    warnings.warn(
-        msg + "Falling back to the dense O(R*N) integrator "
-        "(allow_dense=True) — expect a large slowdown.", RuntimeWarning,
-        stacklevel=3)
-    return False
+def _check_engine(engine: str) -> None:
+    if engine not in GRAD_ENGINES:
+        raise ValueError(f"unknown gradient engine {engine!r}; expected one "
+                         f"of {GRAD_ENGINES}")
 
 
 def pixel_loss(params, scene: Scene, camera: Camera, key, target,
-               config: RenderConfig, engine: str = "dense",
-               iters: Optional[int] = None, return_leftover: bool = False,
-               allow_dense: bool = False):
+               config: RenderConfig, engine: str = "dense"):
     """Mean squared pixel error of a fresh stochastic render vs target.
 
-    ``engine``: "dense" differentiates through the full scan integrator
-    (any scene; O(R*N) backward); "recorded" uses the bounce-indexed Pallas
-    record + O(R) XLA replay estimator (:func:`rayz_tpu.ops.render_diff`);
-    "recorded-pp" uses the persistent-path recorder
-    (:func:`rayz_tpu.ops.render_diff_pp`) — the fastest backward. Its
-    default budget self-repairs via straggler compaction
-    (:mod:`rayz_tpu.ops.pathrec`); ``iters`` overrides the recording budget
-    (e.g. ``spp*max_depth`` for the single-pass hard guarantee), and
-    ``return_leftover=True`` returns ``(loss, leftover)`` where leftover is
-    the number of samples the budget truncated (0 unless the compaction
-    capacity overflows) — nonzero leftover means loss AND gradients are
-    biased low, so callers that cannot tolerate bias must check it
-    (:func:`fit` does, and raises). A recorded request on a scene the record
-    kernel cannot run (tables beyond its ~13k-primitive SMEM budget, or
-    unsupported shading) RAISES at trace time; ``allow_dense=True`` degrades
-    to the dense O(R*N) integrator with a ``RuntimeWarning`` instead — never
-    silently (see :func:`_check_recordable`).
+    ``engine="dense"`` differentiates through the full scan integrator (any
+    scene). Its backward is O(R) per bounce in the nearest-hit search
+    (``intersect._winner_t``) plus a recomputed forward sweep under remat.
     """
-    fitted = inject_params(scene, params)
-    recordable = _check_recordable(scene, engine, allow_dense,
-                                   camera.height * camera.width)
-    leftover = jnp.zeros((), jnp.int32)
-    if engine == "recorded-pp" and recordable:
-        img, leftover = render_diff_pp(fitted, camera, key, config,
-                                       iters=iters, return_leftover=True)
-    elif engine == "recorded" and recordable:
-        img = render_diff(fitted, camera, key, config)
-    else:
-        img = render(fitted, camera, key, config)
-    loss = jnp.mean((img - target.reshape(img.shape)) ** 2)
-    if return_leftover:
-        return loss, leftover
-    return loss
+    _check_engine(engine)
+    img = render(inject_params(scene, params), camera, key, config)
+    return jnp.mean((img - target.reshape(img.shape)) ** 2)
 
 
 def make_train_step(optimizer: optax.GradientTransformation, config: RenderConfig,
-                    mesh: Optional[Mesh] = None, engine: str = "dense",
-                    iters: Optional[int] = None, strict: bool = False,
-                    with_leftover: bool = False, allow_dense: bool = False):
+                    mesh: Optional[Mesh] = None, engine: str = "dense"):
     """Build a jitted Adam/SGD step: (params, opt_state, scene, camera, key,
-    target) -> (params, opt_state, loss) — or with ``with_leftover=True``
-    (params, opt_state, loss, leftover), where leftover counts the samples
-    the recorded-pp budget truncated (always 0 for the other engines; see
-    :func:`pixel_loss`). ``iters`` overrides the recording budget;
-    ``strict=True`` forces the single-pass exhaustive ``spp*max_depth``
-    budget, which can never truncate.
+    target) -> (params, opt_state, loss).
 
     With a mesh, pixels+target are sharded across devices, each device
     renders + backprops its shard, and the parameter gradient is psum-reduced
-    (replicated params, data-parallel pixels). ``engine`` applies on the mesh
-    path too: "recorded" runs the Pallas record kernel + O(R) replay per
-    shard (the fast distributed backward); per-device RNG streams come from
-    folding the step key with the device index.
+    (replicated params, data-parallel pixels); per-device RNG streams come
+    from folding the step key with the device index.
     """
-    if engine not in ("dense", "recorded", "recorded-pp"):
-        raise ValueError(f"unknown engine {engine!r}")
-    if strict:
-        if iters is not None:
-            raise ValueError("pass either iters or strict=True, not both")
-        iters = config.spp * config.max_depth
+    _check_engine(engine)
     if mesh is None:
 
         @jax.jit
         def step(params, opt_state, scene, camera, key, target):
-            (loss, leftover), grads = jax.value_and_grad(
-                pixel_loss, has_aux=True)(
-                params, scene, camera, key, target, config, engine,
-                iters, True, allow_dense
-            )
+            loss, grads = jax.value_and_grad(pixel_loss)(
+                params, scene, camera, key, target, config, engine)
             updates, opt_state = optimizer.update(grads, opt_state, params)
             params = optax.apply_updates(params, updates)
-            if with_leftover:
-                return params, opt_state, loss, leftover
             return params, opt_state, loss
 
         return step
 
     axis = mesh.axis_names[0]
-    recorded = engine in ("recorded", "recorded-pp")
-    interp = default_interpret()
 
     def _loss_grad_shard(params, scene, camera, key, px, py, tgt, weight):
         def local_loss(p):
-            fitted = inject_params(scene, p)
-            recordable = _check_recordable(scene, engine, allow_dense,
-                                           camera.height * camera.width)
-            left = jnp.zeros((), jnp.int32)
-            if engine == "recorded-pp" and recordable:
-                dkey = jax.random.fold_in(key, jax.lax.axis_index(axis))
-                from jax.experimental.pallas import tpu as pltpu
-                kint = pltpu.InterpretParams() if interp else False
-                img, left = render_diff_pp_flat(
-                    fitted, camera, dkey, px, py, spp=config.spp,
-                    max_depth=config.max_depth, t_min=config.t_min,
-                    jitter=config.jitter, interpret=kint, iters=iters,
-                    return_leftover=True)
-            elif engine == "recorded" and recordable:
-                dkey = jax.random.fold_in(key, jax.lax.axis_index(axis))
-                img = render_diff_flat(
-                    fitted, camera, dkey, px, py, spp=config.spp,
-                    max_depth=config.max_depth, t_min=config.t_min,
-                    jitter=config.jitter, interpret=interp)
-            else:
-                img = _render_shard(fitted, camera, key, px, py, config, axis)
-            return jnp.sum(weight[:, None] * (img - tgt) ** 2), left
+            img = _render_shard(inject_params(scene, p), camera, key, px, py,
+                                config, axis)
+            return jnp.sum(weight[:, None] * (img - tgt) ** 2)
 
-        (l, left), g = jax.value_and_grad(local_loss, has_aux=True)(params)
-        # psum the leftover COUNT in f32: the XLA-CPU gloo backend was
-        # observed to deadlock on a mixed f32+s32 all-reduce group in the
-        # 2-process loopback test (exact counts survive f32 below 2^24
-        # samples; leftover is 0 in practice and the check is >0).
-        return (jax.lax.psum(l, axis), jax.lax.psum(g, axis),
-                jax.lax.psum(left.astype(l.dtype), axis).astype(jnp.int32))
+        l, g = jax.value_and_grad(local_loss)(params)
+        # params are replicated (mesh-invariant) and the loss is per-shard,
+        # so the implicit pvary between them transposes to a psum: ``g`` is
+        # already the mesh-wide gradient. A second psum would scale it by
+        # the device count.
+        return jax.lax.psum(l, axis), g
 
     sharded_lg = _shard_map(
         _loss_grad_shard,
         mesh=mesh,
         in_specs=(P(), P(), P(), P(), P(axis), P(axis), P(axis), P(axis)),
-        out_specs=(P(), P(), P()),
-        # pallas_call outputs carry no varying-manual-axes info, so the vma
-        # checker cannot verify the recorded body; it is collective-free
-        # except the final psums.
-        check_vma=not recorded,
+        out_specs=(P(), P()),
     )
 
     @jax.jit
@@ -292,8 +162,8 @@ def make_train_step(optimizer: optax.GradientTransformation, config: RenderConfi
             # padding pixels render real values but must not contribute loss
             # or gradient — weight them to zero.
             weight = jnp.concatenate([weight, jnp.zeros((pad,), weight.dtype)])
-        loss_sum, grads, leftover = sharded_lg(
-            params, scene, camera, key, px, py, tgt, weight)
+        loss_sum, grads = sharded_lg(params, scene, camera, key, px, py, tgt,
+                                     weight)
         # per-shard losses are SUMS (psum-reducible); normalize loss AND
         # grads to the MEAN so step sizes match the single-device pixel_loss
         # exactly (same lr semantics on and off the mesh).
@@ -302,8 +172,6 @@ def make_train_step(optimizer: optax.GradientTransformation, config: RenderConfi
         grads = jax.tree_util.tree_map(lambda g: g / denom, grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
-        if with_leftover:
-            return params, opt_state, loss, leftover
         return params, opt_state, loss
 
     return step
@@ -314,27 +182,19 @@ def fit(scene: Scene, camera: Camera, target, *, config: RenderConfig,
         fields: Sequence[str] = DEFAULT_TRAINABLE,
         mesh: Optional[Mesh] = None, key=None,
         callback=None, engine: str = "dense",
-        iters: Optional[int] = None, strict: bool = False,
-        allow_dense: bool = False,
         checkpoint_dir: Optional[str] = None,
         checkpoint_every: int = 50) -> Tuple[Scene, list]:
     """Run Adam on pixel L2 against ``target``; returns (fitted scene,
-    loss history). ``engine`` as in :func:`pixel_loss`, honored on both the
-    single-device and the mesh path. With ``engine="recorded-pp"`` every
-    step's ``leftover`` counter is checked on the host: a nonzero value
-    (recording budget truncated samples even after straggler compaction —
-    biased loss AND gradients) raises ``RuntimeError`` with the measured
-    deficit instead of silently training on it; raise ``iters`` (recording
-    budget) or pass ``strict=True`` (exhaustive single-pass budget, can
-    never truncate) to proceed on such scenes.
+    loss history). ``engine`` as in :func:`pixel_loss`, on both the
+    single-device and the mesh path.
 
     With ``checkpoint_dir``, the trainable params + optimizer state + RNG key
-    are saved (orbax, :mod:`rayz_tpu.diff.checkpoint`) every
-    ``checkpoint_every`` steps and at the end; if the directory already holds
-    a checkpoint, the fit RESUMES from its ``latest_step`` and reproduces the
-    exact trajectory an uninterrupted run would have taken (the step key is
-    part of the checkpoint). ``steps`` counts total steps including resumed
-    ones; the returned history covers only the steps run by this call.
+    are saved (:mod:`rayz_tpu.diff.checkpoint`) every ``checkpoint_every``
+    steps and at the end; if the directory already holds a checkpoint, the
+    fit RESUMES from its ``latest_step`` and reproduces the exact trajectory
+    an uninterrupted run would have taken (the step key is part of the
+    checkpoint). ``steps`` counts total steps including resumed ones; the
+    returned history covers only the steps run by this call.
     """
     if key is None:
         key = jax.random.PRNGKey(0)
@@ -352,33 +212,17 @@ def fit(scene: Scene, camera: Camera, target, *, config: RenderConfig,
         if last is not None:
             template = {"params": params, "opt_state": opt_state,
                         "key": key, "step": 0}
-            st = ckpt.restore_checkpoint(checkpoint_dir, last,
-                                         template=template)
+            st = ckpt.restore_checkpoint(checkpoint_dir, template, last)
             params = st["params"]
             opt_state = st["opt_state"]
             key = jnp.asarray(st["key"])
             start = int(st["step"])
-    check_left = engine == "recorded-pp"
-    step_fn = make_train_step(optimizer, config, mesh, engine=engine,
-                              iters=iters, strict=strict,
-                              with_leftover=check_left,
-                              allow_dense=allow_dense)
+    step_fn = make_train_step(optimizer, config, mesh, engine=engine)
     history = []
     for i in range(start, steps):
         key, sub = jax.random.split(key)
-        out = step_fn(params, opt_state, scene, camera, sub, target)
-        if check_left:
-            params, opt_state, loss, leftover = out
-            leftover = int(leftover)
-            if leftover:
-                raise RuntimeError(
-                    f"fit step {i}: recording budget truncated {leftover} "
-                    f"of {camera.height * camera.width * config.spp} samples "
-                    "even after straggler compaction — loss/gradients would "
-                    "be biased. Raise iters= (recording budget) or pass "
-                    "strict=True for the exhaustive single-pass budget.")
-        else:
-            params, opt_state, loss = out
+        params, opt_state, loss = step_fn(params, opt_state, scene, camera,
+                                          sub, target)
         history.append(float(loss))
         if callback is not None:
             callback(i, float(loss), params)

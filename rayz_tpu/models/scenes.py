@@ -218,9 +218,10 @@ def sphere_grid(n: int = 100, width: int = 64, height: int | None = None,
 def sphere_field(n: int = 10000, width: int = 512, height: int | None = None,
                  seed: int = 0, dtype=jnp.float32):
     """Large-scene stress config: ``n`` random small spheres in a slab, plus
-    a checkered ground — the >=10k-primitive scene where block culling (the
-    BVH capability, /root/reference/src/hit.zig:101-217) must beat the brute-
-    force O(N)-per-ray loop. Material mix mirrors random_bouncing."""
+    a checkered ground — the >=10k-primitive scene a BVH traversal (the
+    reference's capability, /root/reference/src/hit.zig:101-217) is for;
+    both engines test every primitive per ray today (ROADMAP.md). Material
+    mix mirrors random_bouncing."""
     rng = np.random.default_rng(seed)
     b = SceneBuilder()
     even = b.add_solid_texture((0.2, 0.3, 0.1))

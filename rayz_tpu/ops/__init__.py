@@ -3,11 +3,7 @@ from .intersect import HitRecord, aabb_hit, intersect, intersect_spheres, inters
 from .shade import scatter, schlick_reflectance, sky_color, texture_value
 from .megakernel import (render_pallas, render_pallas_sharded, scene_tables,
                          supports_scene)
-from .diffkernel import record_paths, render_diff, replay_paths, supports_diff
-from .pathrec import (default_iters, default_k1, gather_rows, record_pp, render_diff_pp,
-                      render_diff_pp_flat, replay_pp, supports_pp)
 from .engine import pick_engine, render_fast
-from .wavefront import render_wavefront, supports_wavefront
 
 __all__ = [
     "RenderConfig",
@@ -15,21 +11,7 @@ __all__ = [
     "render_jit",
     "render_pallas",
     "render_pallas_sharded",
-    "render_diff",
-    "render_diff_pp",
-    "render_diff_pp_flat",
-    "record_pp",
-    "replay_pp",
-    "gather_rows",
-    "default_iters",
-    "default_k1",
-    "supports_pp",
-    "supports_diff",
-    "record_paths",
-    "replay_paths",
     "render_fast",
-    "render_wavefront",
-    "supports_wavefront",
     "pick_engine",
     "scene_tables",
     "supports_scene",

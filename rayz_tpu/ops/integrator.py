@@ -47,11 +47,11 @@ class RenderConfig(NamedTuple):
     chunk_size: Optional[int] = None
     jitter: bool = True
     # Rematerialize each bounce in the backward pass (SURVEY.md §7 "backward
-    # memory"): without it, reverse-mode AD stores every bounce's [rays,
-    # primitives] intersection intermediates — O(depth * R * N) HBM, which
-    # does not compile at benchmark sizes. With it, residuals are only the
-    # O(R) per-bounce ray state and the backward sweep recomputes the
-    # intersections (~2x backward FLOPs). No effect on forward-only renders.
+    # memory"): without it, reverse-mode AD stores every bounce's per-ray
+    # intermediates for every sample pass at once — O(spp * depth * R)
+    # device memory. With it, residuals are only the O(R) per-bounce ray
+    # state and the backward sweep recomputes each bounce, including its
+    # dense nearest-hit search. No effect on forward-only renders.
     remat: bool = True
 
 
@@ -133,7 +133,7 @@ def render(scene: Scene, camera: Camera, key, config: RenderConfig = RenderConfi
     if config.remat:
         # Checkpoint each (sample pass, chunk): the spp scan and chunk map
         # otherwise store every pass's per-bounce carries — O(spp * depth * R)
-        # HBM. With this, a pass's residual is just its inputs, and its trace
+        # device memory. With this, a pass's residual is just its inputs, and its trace
         # is recomputed transiently during the backward sweep.
         trace_chunk = jax.checkpoint(trace_chunk)
 

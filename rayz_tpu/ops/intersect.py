@@ -1,13 +1,13 @@
 """Batched ray/primitive intersection.
 
-TPU-native replacement for the reference's per-ray recursive BVH traversal with
-vtable dispatch (/root/reference/src/hit.zig:181-216, geom.zig:38-66). Instead
-of a divergent tree walk, every ray tests every primitive as one dense [R, N]
-computation whose inner products are expressed as ``[R,3] @ [3,N]`` matmuls —
-the MXU-friendly form — followed by elementwise root-finding on the VPU and a
-min-reduction for the nearest hit (SURVEY.md §7 design delta #5). Hit
-attributes (point/normal/material) are computed only for the winning primitive
-via cheap [R]-sized gathers.
+Replaces the reference's per-ray recursive BVH traversal with vtable dispatch
+(/root/reference/src/hit.zig:181-216, geom.zig:38-66). Every ray tests every
+primitive as one dense elementwise [R, N] sweep (offsets ``c - o`` per
+component, then dot products) that XLA fuses with the min-reduction for the
+nearest hit, so no [R, N] array reaches device memory. Hit attributes
+(point/normal/material) are computed only for the winning primitive via
+[R]-sized gathers, and the hit distance's gradient comes from the winner's
+root recomputed from gathered parameters (``_winner_t``).
 
 The nearest-hit semantics match the reference exactly: the BVH's
 shrinking-tmax traversal (hit.zig:197-214) computes the same argmin over
@@ -50,79 +50,80 @@ class HitRecord:
     hit: jnp.ndarray  # [R] bool
 
 
-def _matmul(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """[R,3] x [N,3] -> [R,N] inner products on the MXU.
-
-    Precision MUST be HIGHEST: the default matmul precision feeds the MXU
-    bfloat16 operands, and the ~1e-2 absolute error that introduces into the
-    quadratic's b/c terms produces severe self-intersection ring artifacts.
-    True f32 contraction (6-pass bf16 on the MXU) costs little here — K=3, and
-    the elementwise root-finding dominates.
-    """
-    return jax.lax.dot_general(
-        a, b, dimension_numbers=(((1,), (1,)), ((), ())),
-        preferred_element_type=a.dtype,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-def intersect_spheres(scene: Scene, origin, direction, time, t_min, t_max):
-    """Nearest sphere hit per ray.
+def _sphere_t(ocx, ocy, ocz, dx, dy, dz, a, r2, t_min, t_max):
+    """Nearest root in [t_min, t_max] of |o + t d - c|^2 = r^2, +inf on a
+    miss, from the offset ``oc = c - o`` per component; broadcasts, so it
+    serves the dense [R, N] sweep and the per-ray winner alike.
 
     Quadratic with the half-b optimization, matching Sphere.hitInner
-    (geom.zig:38-66): ``offset = center(time) - origin``, ``half_b = d.offset``
-    (note reference's sign convention: roots are (half_b -+ sqrt(disc)) / a),
-    nearest root in [t_min, t_max], second root only if the first is out of
-    range. Moving centers: center(t) = center0 + t * velocity (geom.zig:40 via
-    Ray-stored centers).
-
-    Returns (t [R], idx [R] int32) with t = +inf on miss.
-    """
-    dt = origin.dtype
-    inf = jnp.asarray(jnp.inf, dt)
-    c0 = scene.sphere_center  # [N,3]
-    vel = scene.sphere_velocity
-    r = scene.sphere_radius  # [N]
-
-    d_dot_o = vec.dot(direction, origin)[:, None]  # [R,1]
-    a = vec.norm2(direction)[:, None]  # [R,1]
-    o2 = vec.norm2(origin)[:, None]  # [R,1]
-
-    d_dot_c = _matmul(direction, c0)  # [R,N]
-    o_dot_c = _matmul(origin, c0)  # [R,N]
-    c0_sq = vec.norm2(c0)[None, :]  # [1,N]
-    if scene.has_motion:
-        tau = time[:, None]  # [R,1]
-        d_dot_c = d_dot_c + tau * _matmul(direction, vel)
-        o_dot_c = o_dot_c + tau * _matmul(origin, vel)
-        c0_sq = c0_sq + 2.0 * tau * vec.dot(c0, vel)[None, :] + (tau * tau) * vec.norm2(vel)[None, :]
-
-    half_b = d_dot_c - d_dot_o  # d . (c - o)
-    c_term = c0_sq - 2.0 * o_dot_c + o2 - (r * r)[None, :]  # |c-o|^2 - r^2
+    (geom.zig:38-66): ``half_b = d.(c - o)``, roots (half_b -+ sqrt(disc))/a,
+    the second root only if the first is out of range; only disc < 0 misses
+    (geom.zig:49-50)."""
+    half_b = dx * ocx + dy * ocy + dz * ocz
+    c_term = ocx * ocx + ocy * ocy + ocz * ocz - r2
     disc = half_b * half_b - a * c_term
-
-    hit_disc = disc >= 0.0  # geom.zig:49-50: only disc < 0 misses
-    # NaN-safe sqrt for reverse-mode AD: sqrt'(0+) is inf, so route the
-    # non-hit lanes through a dummy positive value.
-    rt = jnp.sqrt(jnp.where(disc > 0.0, disc, 1.0))
-    rt = jnp.where(disc > 0.0, rt, 0.0)
     inv_a = 1.0 / a
+    rt = vec.safe_sqrt(disc)  # sqrt'(0+) is inf: keep NaN out of the AD
     t1 = (half_b - rt) * inv_a
     t2 = (half_b + rt) * inv_a
     t1_ok = (t1 >= t_min) & (t1 <= t_max)
     t2_ok = (t2 >= t_min) & (t2 <= t_max)
-    t = jnp.where(t1_ok, t1, jnp.where(t2_ok, t2, inf))
-    t = jnp.where(hit_disc & scene.sphere_valid[None, :], t, inf)
+    t = jnp.where(t1_ok, t1, jnp.where(t2_ok, t2, jnp.inf))
+    return jnp.where(disc >= 0.0, t, jnp.inf)
 
-    idx = jnp.argmin(t, axis=1).astype(jnp.int32)  # [R]
-    t_best = jnp.take_along_axis(t, idx[:, None].astype(jnp.int32), axis=1)[:, 0]
-    return t_best, idx
+
+def _winner_t(t_all, t_winner):
+    """Nearest-hit distance from the dense sweep ``t_all`` [R, P], with the
+    gradient of ``t_winner`` [R] (the winner's root recomputed from gathered
+    parameters). The value is exactly the sweep's minimum; the derivative is
+    the winner's, which is what differentiating the minimum gives. So the
+    backward pass is O(R): it never touches the [R, P] sweep."""
+    sg = jax.lax.stop_gradient
+    t_near = sg(jnp.min(t_all, axis=1))
+    ok = jnp.isfinite(t_near) & jnp.isfinite(t_winner)
+    delta = jnp.where(ok, t_winner, 0.0)
+    return t_near + (delta - sg(delta))
+
+
+def intersect_spheres(scene: Scene, origin, direction, time, t_min, t_max):
+    """Nearest sphere hit per ray, as one elementwise [R, N] sweep that XLA
+    fuses with its min-reduction. Moving centers: center(t) = center0 +
+    t * velocity (geom.zig:40 via Ray-stored centers).
+
+    Returns (t [R], idx [R] int32) with t = +inf on miss.
+    """
+    sg = jax.lax.stop_gradient
+    o, d, tm = sg(origin), sg(direction), sg(time)
+    c, vel, r = sg(scene.sphere_center), sg(scene.sphere_velocity), \
+        sg(scene.sphere_radius)
+
+    def offset(k):  # (c - o)_k as [R, N]
+        ck = c[None, :, k]
+        if scene.has_motion:
+            ck = ck + tm[:, None] * vel[None, :, k]
+        return ck - o[:, k:k + 1]
+
+    t_all = _sphere_t(offset(0), offset(1), offset(2), d[:, 0:1], d[:, 1:2],
+                      d[:, 2:3], vec.norm2(d)[:, None], (r * r)[None, :], t_min,
+                      t_max)
+    t_all = jnp.where(scene.sphere_valid[None, :], t_all, jnp.inf)
+    idx = jnp.argmin(t_all, axis=1).astype(jnp.int32)
+
+    cw = scene.sphere_center[idx]
+    if scene.has_motion:
+        cw = cw + time[:, None] * scene.sphere_velocity[idx]
+    oc = cw - origin
+    rw = scene.sphere_radius[idx]
+    t_w = _sphere_t(oc[:, 0], oc[:, 1], oc[:, 2], direction[:, 0],
+                    direction[:, 1], direction[:, 2],
+                    vec.norm2(direction), rw * rw, t_min, t_max)
+    return _winner_t(t_all, t_w), idx
 
 
 def _triangle_frame(scene: Scene):
-    """Per-triangle plane + dual-basis precompute for the matmul-form
-    Moller-Trumbore equivalent. All [M]-sized; cheap and kept in-graph so
-    gradients flow to the vertices."""
+    """Per-triangle plane normal and dual basis of the edge frame, so that
+    the barycentrics of a point p are u = g1.(p - v0), v = g2.(p - v0). All
+    [M]-sized; cheap and kept in-graph so gradients flow to the vertices."""
     e1 = scene.tri_v1 - scene.tri_v0  # [M,3]
     e2 = scene.tri_v2 - scene.tri_v0
     n = vec.cross(e1, e2)  # [M,3] unnormalized plane normal
@@ -136,55 +137,60 @@ def _triangle_frame(scene: Scene):
     return n, g1, g2
 
 
-def intersect_triangles(scene: Scene, origin, direction, time, t_min, t_max):
-    """Nearest (double-sided) triangle hit per ray.
+def _triangle_t(w, n, g1, g2, d, t_min, t_max):
+    """Nearest (double-sided) hit distance of rays with directions ``d`` on
+    triangles with plane normals ``n``, dual bases ``g1``/``g2`` and offsets
+    ``w = v0 - o``, each a tuple of three broadcastable components; +inf on
+    a miss. Plane first, then the barycentrics of the hit point."""
+    n_dot_d = d[0] * n[0] + d[1] * n[1] + d[2] * n[2]
+    parallel = n_dot_d == 0.0
+    t = (n[0] * w[0] + n[1] * w[1] + n[2] * w[2]) / jnp.where(
+        parallel, 1.0, n_dot_d)
+    h = [t * d[k] - w[k] for k in range(3)]  # p - v0
+    u = g1[0] * h[0] + g1[1] * h[1] + g1[2] * h[2]
+    v = g2[0] * h[0] + g2[1] * h[1] + g2[2] * h[2]
+    ok = ((~parallel) & (t >= t_min) & (t <= t_max) & (u >= 0.0)
+          & (v >= 0.0) & (u + v <= 1.0))
+    return jnp.where(ok, t, jnp.inf)
 
-    Plane-then-barycentric formulation: t from the plane equation, then
-    barycentric (u, v) as affine functions of the hit point so that the whole
-    [R, M] computation is six ``[R,3] @ [3,M]`` matmuls plus elementwise work —
-    no [R, M, 3] intermediates. Equivalent to Moller-Trumbore for non-degenerate
-    triangles. Capability beyond the spheres-only reference (BASELINE config 4).
+
+def intersect_triangles(scene: Scene, origin, direction, time, t_min, t_max):
+    """Nearest (double-sided) triangle hit per ray, as one elementwise
+    [R, M] sweep. Equivalent to Moller-Trumbore for non-degenerate
+    triangles. Capability beyond the spheres-only reference (BASELINE
+    config 4).
 
     Returns (t [R], idx [R] int32) with t = +inf on miss.
     """
     del time  # triangles are static
-    dt = origin.dtype
-    inf = jnp.asarray(jnp.inf, dt)
-    n, g1, g2 = _triangle_frame(scene)
+    sg = jax.lax.stop_gradient
+    o, d = sg(origin), sg(direction)
+    n, g1, g2 = (sg(x) for x in _triangle_frame(scene))
+    v0 = sg(scene.tri_v0)
 
-    n_dot_v0 = vec.dot(n, scene.tri_v0)[None, :]  # [1,M]
-    n_dot_o = _matmul(origin, n)  # [R,M]
-    n_dot_d = _matmul(direction, n)  # [R,M]
-    parallel = n_dot_d == 0.0
-    t = (n_dot_v0 - n_dot_o) / jnp.where(parallel, 1.0, n_dot_d)
+    def rows(x):
+        return tuple(x[None, :, k] for k in range(3))
 
-    # barycentrics: u = g1 . (p - v0), v = g2 . (p - v0), p = o + t d
-    g1_o = _matmul(origin, g1) - vec.dot(g1, scene.tri_v0)[None, :]
-    g1_d = _matmul(direction, g1)
-    g2_o = _matmul(origin, g2) - vec.dot(g2, scene.tri_v0)[None, :]
-    g2_d = _matmul(direction, g2)
-    u = g1_o + t * g1_d
-    v = g2_o + t * g2_d
+    w = tuple(v0[None, :, k] - o[:, k:k + 1] for k in range(3))
+    t_all = _triangle_t(w, rows(n), rows(g1), rows(g2),
+                        tuple(d[:, k:k + 1] for k in range(3)), t_min, t_max)
+    t_all = jnp.where(scene.tri_valid[None, :], t_all, jnp.inf)
+    idx = jnp.argmin(t_all, axis=1).astype(jnp.int32)
 
-    ok = (
-        (~parallel)
-        & (t >= t_min)
-        & (t <= t_max)
-        & (u >= 0.0)
-        & (v >= 0.0)
-        & (u + v <= 1.0)
-        & scene.tri_valid[None, :]
-    )
-    t = jnp.where(ok, t, inf)
-    idx = jnp.argmin(t, axis=1).astype(jnp.int32)
-    t_best = jnp.take_along_axis(t, idx[:, None].astype(jnp.int32), axis=1)[:, 0]
-    return t_best, idx
+    nw, g1w, g2w = (x[idx] for x in _triangle_frame(scene))
+    ww = scene.tri_v0[idx] - origin
+
+    def cols(x):
+        return tuple(x[:, k] for k in range(3))
+
+    t_w = _triangle_t(cols(ww), cols(nw), cols(g1w), cols(g2w),
+                      cols(direction), t_min, t_max)
+    return _winner_t(t_all, t_w), idx
 
 
 def intersect(scene: Scene, origin, direction, time, t_min, t_max=jnp.inf) -> HitRecord:
     """Nearest hit over all primitives; batched bvh.findHit + Hit.init
     (renderer.zig:107, hit.zig:16-42)."""
-    dt = origin.dtype
     t_s, i_s = intersect_spheres(scene, origin, direction, time, t_min, t_max)
     if scene.n_triangles > 0:
         t_t, i_t = intersect_triangles(scene, origin, direction, time, t_min, t_max)
@@ -237,7 +243,7 @@ def aabb_hit(low, high, origin, direction, t_min, t_max):
     by zero direction components follows IEEE (vdiv semantics, vec.zig:126-132).
 
     Shapes broadcast: low/high [..., 3] against origin/direction [..., 3].
-    Kept for parity tests and for future tile-level culling.
+    Kept, with the helpers below, for a BVH traversal (see ROADMAP.md).
     """
     t0s = (low - origin) / direction
     t1s = (high - origin) / direction
@@ -250,16 +256,14 @@ def aabb_hit(low, high, origin, direction, t_min, t_max):
 
 def aabb_enclose(low_a, high_a, low_b, high_b):
     """Union of two AABBs — AABB.enclose (hit.zig:55-60) in batched array
-    form; the megakernel's culling blocks use the same min/max reduction over
-    whole Morton groups (megakernel._block_rows)."""
+    form."""
     return jnp.minimum(low_a, low_b), jnp.maximum(high_a, high_b)
 
 
 def aabb_longest_axis(low, high):
     """Index of the widest axis — AABB.longestAxis via V3.amax
-    (hit.zig:62-64, vec.zig:150-157). The reference BVH median-splits on it;
-    the TPU-native analogue orders primitives by 3-D Morton code instead
-    (megakernel._morton_perm), which needs no per-node axis choice."""
+    (hit.zig:62-64, vec.zig:150-157); the reference BVH median-splits on
+    it (hit.zig:130-159)."""
     return jnp.argmax(high - low, axis=-1).astype(jnp.int32)
 
 

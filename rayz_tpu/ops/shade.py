@@ -146,7 +146,7 @@ def scatter(key, scene: Scene, direction, time, hit: HitRecord):
     eta = jnp.where(hit.front_face, 1.0 / ior, ior)
     unit_dir = vec.normalize(direction)
     cos_theta = vec.dot(-unit_dir, normal)
-    sin_theta = jnp.sqrt(jnp.maximum(1.0 - cos_theta * cos_theta, 0.0))
+    sin_theta = vec.safe_sqrt(1.0 - cos_theta * cos_theta)
     cannot_refract = eta * sin_theta > 1.0
     coin = jax.random.uniform(k_coin, shape, dtype=dt)
     do_reflect = cannot_refract | (schlick_reflectance(cos_theta, eta) > coin)

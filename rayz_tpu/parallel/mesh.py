@@ -2,7 +2,7 @@
 
 The reference renders with a serial triple loop on one CPU core
 (/root/reference/src/renderer.zig:80-97) and has no parallelism of any kind
-(SURVEY.md §2). The TPU-native scaling axis is rays/pixels: the flat pixel
+(SURVEY.md §2). The scaling axis here is rays/pixels: the flat pixel
 array is sharded over a device mesh with ``shard_map``, the scene SoA is
 replicated, each device traces its pixel shard independently (embarrassingly
 parallel — zero collectives in the forward render), and gradients of scene
@@ -39,9 +39,10 @@ def make_mesh(devices: Optional[Sequence] = None, axis_name: str = AXIS) -> Mesh
     """1-D mesh over all (or the given) devices.
 
     Rendering is embarrassingly parallel over pixels, so a flat axis is the
-    right shape; within a host the shards ride ICI, across hosts DCN. A 2-D
-    (host, chip) factorization adds nothing for this workload — there is no
-    cross-pixel communication to localize.
+    right shape: the forward render has no collectives and the fit one
+    gradient psum per step, and the GPUs of a host reach each other all to
+    all over NVLink, so a 2-D (host, device) factorization adds nothing for
+    this workload.
     """
     import numpy as np
 

@@ -1,8 +1,8 @@
 """Multi-host setup and per-host image assembly.
 
 The reference is a single process (SURVEY.md §2: no threads, no processes, no
-networking). The TPU-native multi-host story: ``jax.distributed.initialize``
-joins the processes, the global 1-D mesh spans every chip in the slice, the
+networking). The multi-host story here: ``jax.distributed.initialize``
+joins the processes, the global 1-D mesh spans every device of the job, the
 same ``render_sharded``/``make_train_step`` code runs SPMD on each host, and
 ``assemble_global_image`` materializes the full image on host 0 for writing.
 """
@@ -25,8 +25,11 @@ def initialize(coordinator_address: Optional[str] = None,
     """Join the multi-host job; call FIRST, before any other JAX API.
 
     With no arguments this defers to JAX's cluster auto-detection
-    (``jax.distributed.initialize()`` reads the TPU pod metadata server /
-    Slurm / Open MPI env); explicit arguments skip detection. Idempotent:
+    (``jax.distributed.initialize()`` reads a Slurm / Open MPI / cloud
+    cluster environment where one exists); explicit arguments skip
+    detection. A machine with no such environment needs the explicit
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id``. Idempotent:
     returns silently if the distributed runtime is already up (e.g. the
     launcher initialized it). On a plain single-process environment with no
     detectable cluster, the no-arg form swallows JAX's "coordinator_address
@@ -58,7 +61,7 @@ def is_primary_host() -> bool:
 
 
 def global_mesh():
-    """1-D mesh over every addressable chip in the slice (all hosts)."""
+    """1-D mesh over every device of the job (all hosts)."""
     return make_mesh(jax.devices())
 
 
@@ -71,7 +74,7 @@ def assemble_global_image(img) -> Optional[np.ndarray]:
         # tiled=True: the input IS the global (sharded) array whose pieces
         # are gathered in place — tiled=False would stack a new leading
         # process axis and is rejected outright for non-fully-addressable
-        # inputs (bug found by the real 2-process loopback test, round 3).
+        # inputs (bug found by the real 2-process loopback test).
         img = multihost_utils.process_allgather(img, tiled=True)
         # process_allgather returns the full array on every host; only host 0
         # should write it.

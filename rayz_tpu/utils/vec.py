@@ -20,6 +20,7 @@ __all__ = [
     "cross",
     "reflect",
     "refract",
+    "safe_sqrt",
     "ray_at",
     "near_zero",
     "NEAR_ZERO_TOL",
@@ -30,13 +31,15 @@ NEAR_ZERO_TOL = 1e-8
 
 
 def dot(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
-    """Dot product over the trailing axis (vec.zig:95-97). Shape [...]."""
-    return jnp.sum(a * b, axis=-1)
+    """Dot product over the trailing axis of 3-vectors (vec.zig:95-97).
+    Shape [...]. Written as x + y + z, not a reduction, so every program
+    (sharded or not, any batch shape) sums in the same order."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
 def norm2(a: jnp.ndarray) -> jnp.ndarray:
     """Squared magnitude over the trailing axis."""
-    return jnp.sum(a * a, axis=-1)
+    return dot(a, a)
 
 
 def norm(a: jnp.ndarray) -> jnp.ndarray:
@@ -84,9 +87,17 @@ def refract(unit_dir: jnp.ndarray, n: jnp.ndarray, eta: jnp.ndarray) -> jnp.ndar
     cos_theta = dot(-unit_dir, n)[..., None]
     perp = (unit_dir + cos_theta * n) * eta
     # Clamp for numerical safety at grazing/TIR boundary (caller must not rely
-    # on refract output when total internal reflection applies).
-    par = -jnp.sqrt(jnp.maximum(1.0 - norm2(perp), 0.0))[..., None] * n
+    # on refract output when total internal reflection applies), through a
+    # NaN-safe sqrt: sqrt'(0) is inf, and inf times the zero cotangent of
+    # the unused branch would put NaN into the gradient.
+    par = -safe_sqrt(1.0 - norm2(perp))[..., None] * n
     return perp + par
+
+
+def safe_sqrt(x: jnp.ndarray) -> jnp.ndarray:
+    """sqrt(max(x, 0)) whose gradient is 0, not inf or NaN, where x <= 0."""
+    pos = x > 0.0
+    return jnp.where(pos, jnp.sqrt(jnp.where(pos, x, 1.0)), 0.0)
 
 
 def ray_at(origin: jnp.ndarray, direction: jnp.ndarray, t: jnp.ndarray) -> jnp.ndarray:

@@ -1,8 +1,8 @@
 """Subprocess body for the REAL 2-process distributed test (SURVEY.md §5
 multi-host plan): each process owns 4 virtual CPU devices, joins via a
 loopback coordinator with ``jax.distributed.initialize``, renders a shard of
-the image over the 8-device GLOBAL mesh, runs one recorded train step with
-psum'd gradients, and host 0 assembles the full image through
+the image over the 8-device GLOBAL mesh, runs one data-parallel train step
+with psum'd gradients, and host 0 assembles the full image through
 ``assemble_global_image``'s ``process_allgather`` branch — the code path a
 single-process test can never execute.
 
@@ -57,78 +57,20 @@ cfg = rt.RenderConfig(spp=1, max_depth=4, jitter=False)
 img = render_sharded_jit(scene, cam, jax.random.PRNGKey(0), cfg, mesh)
 full = multihost.assemble_global_image(img)
 
-# one recorded-engine train step over the global mesh (record kernel in
-# interpret mode per shard, psum'd gradients)
-# The persistent-path (recorded-pp) engine's kernels need the TPU-semantics
-# Pallas interpreter off-TPU, and that interpreter sizes its per-pallas_call
-# global barrier to the MESH device count (8) while each process only runs
-# its 4 local devices' callbacks — a guaranteed deadlock in multi-process
-# meshes (jax _src/pallas/mosaic/interpret/interpret_pallas_call.py:209,
-# threading.Barrier(num_devices)). Our kernels perform no cross-device
-# DMAs/semaphores, so the barrier only needs to span the LOCAL devices:
-# resize it after initialization. Test-infrastructure-only workaround for
-# the upstream interpreter limitation.
-import threading  # noqa: E402
-
-try:
-    from jax._src.pallas.mosaic.interpret import (  # noqa: E402
-        interpret_pallas_call as _ipc)
-    for _name in ("_initialize_shared_memory", "_get_shared_memory",
-                  "_update_clocks_for_global_barrier",
-                  "_clear_shared_memory"):
-        if not hasattr(_ipc, _name):
-            raise AttributeError(_name)
-except (ImportError, AttributeError) as e:  # pragma: no cover - jax bump
-    raise RuntimeError(
-        "multihost_worker's barrier-resize workaround patches private JAX "
-        "Pallas-interpreter internals that no longer exist in this JAX "
-        f"version ({jax.__version__}): {e}. Check whether the upstream "
-        "interpreter still sizes its per-pallas_call barrier to the GLOBAL "
-        "mesh device count (jax _src/pallas/mosaic/interpret/"
-        "interpret_pallas_call.py, threading.Barrier(num_devices)); if that "
-        "is fixed, delete this patch block, otherwise re-target the patch."
-    ) from e
-
-_orig_init_shm = _ipc._initialize_shared_memory
-
-
-def _patched_init_shm(device_id, num_devices, num_cores_per_device, *,
-                      interpret_params):
-    _orig_init_shm(device_id, num_devices, num_cores_per_device,
-                   interpret_params=interpret_params)
-    sm = _ipc._get_shared_memory()
-    n_local = len(jax.local_devices())
-    if sm.barrier.parties != n_local:
-        sm.barrier = threading.Barrier(
-            n_local, action=_ipc._update_clocks_for_global_barrier)
-        sm.clean_up_barrier = threading.Barrier(
-            n_local, action=_ipc._clear_shared_memory)
-
-
-_ipc._initialize_shared_memory = _patched_init_shm
-
+# one data-parallel train step over the global mesh: per-device render +
+# backward, psum'd gradients across the two processes
 params = extract_params(scene, ("tex_color",))
 opt = optax.adam(1e-2)
-step = make_train_step(opt, cfg, mesh, engine="recorded")
+step = make_train_step(opt, cfg, mesh, engine="dense")
 target = jnp.zeros((16, 16, 3), jnp.float32)
 params2, _, loss = step(params, opt.init(params), scene, cam,
                         jax.random.PRNGKey(1), target)
 loss = float(loss)
 
-# and the flagship gradient path: a persistent-path (recorded-pp) step
-# with leftover surfaced across processes (psum'd sample deficit)
-step_pp = make_train_step(opt, cfg, mesh, engine="recorded-pp",
-                          with_leftover=True)
-params3, _, loss_pp, left_pp = step_pp(params, opt.init(params), scene, cam,
-                                       jax.random.PRNGKey(1), target)
-loss_pp = float(loss_pp)
-left_pp = int(left_pp)
-
 if multihost.is_primary_host():
     assert full is not None and full.shape == (16, 16, 3)
-    np.savez(out, img=full, loss=loss, loss_pp=loss_pp, left_pp=left_pp,
-             tex_color=np.asarray(params2["tex_color"]),
-             tex_color_pp=np.asarray(params3["tex_color"]))
+    np.savez(out, img=full, loss=loss,
+             tex_color=np.asarray(params2["tex_color"]))
 else:
     # only host 0 gets the assembled image
     assert full is None

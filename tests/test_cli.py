@@ -49,7 +49,7 @@ def test_cli_progress_weighted_accumulation_exact(tmp_path):
     acc = None
     for i, s in enumerate(sizes):
         cfg = RenderConfig(spp=s, max_depth=depth, t_min=1e-3)
-        img = jax.device_get(render_fast(
+        img = jax.block_until_ready(render_fast(
             scene, camera, jax.random.fold_in(key, i), cfg, engine="xla"))
         acc = img * s if acc is None else acc + img * s
     expected = to_u8(acc / spp)

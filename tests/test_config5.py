@@ -1,6 +1,6 @@
 """BASELINE config 5 at scale: inverse rendering of a 100-sphere scene via
-Adam on pixel L2 (recover albedo AND sphere positions), with the fast
-record/replay gradient engine and orbax checkpoint/resume wired into fit().
+Adam on pixel L2 (recover albedo AND sphere positions), with the dense
+gradient engine and .npz checkpoint/resume wired into fit().
 
 The reference has no inverse rendering or checkpointing (SURVEY.md §5); this
 is the framework's headline extension (BASELINE.json north star + config 5).
@@ -19,7 +19,7 @@ from rayz_tpu.diff.checkpoint import latest_step
 def test_config5_recovery_100_spheres(tmp_path):
     """Perturb every sphere's in-image position (xz; depth along the view
     axis is ~unobservable from one view) and every albedo, then recover both
-    with Adam + engine='recorded'. Checkpoints are written mid-fit."""
+    with Adam + engine='dense'. Checkpoints are written mid-fit."""
     scene, cam = rt.scenes.sphere_grid(100, width=48, dtype=jnp.float64)
     cfg = rt.RenderConfig(spp=8, max_depth=3)
     target = rt.render(scene, cam, jax.random.PRNGKey(7),
@@ -43,7 +43,7 @@ def test_config5_recovery_100_spheres(tmp_path):
         wrong, cam, target, config=cfg, steps=steps,
         learning_rate=optax.cosine_decay_schedule(2e-2, steps),
         fields=("sphere_center", "tex_color"), key=jax.random.PRNGKey(2),
-        engine="recorded", checkpoint_dir=ckpt_dir, checkpoint_every=150,
+        engine="dense", checkpoint_dir=ckpt_dir, checkpoint_every=150,
     )
     assert latest_step(ckpt_dir) == steps  # mid-fit saves + final save
 
@@ -61,7 +61,7 @@ def test_config5_recovery_100_spheres(tmp_path):
 
 
 def test_fit_checkpoint_resume_same_trajectory(tmp_path):
-    """An interrupted fit resumed from its orbax checkpoint must reproduce
+    """An interrupted fit resumed from its checkpoint must reproduce
     the exact params an uninterrupted run produces (optimizer state AND the
     step RNG key are checkpointed)."""
     scene, cam = rt.scenes.two_sphere(width=12, height=12, dtype=jnp.float64)

@@ -10,6 +10,7 @@ silhouette crossings by using small steps in float64."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import rayz_tpu as rt
 from rayz_tpu.diff import extract_params, fit, inject_params, pixel_loss
@@ -134,3 +135,120 @@ def test_fit_recovers_albedo():
     assert history[-1] < history[0] * 0.2
     err = np.abs(np.asarray(fitted.tex_color[1]) - np.array([0.7, 0.3, 0.2]))
     assert err.max() < 0.1, (np.asarray(fitted.tex_color[1]), history[-5:])
+
+
+def _fd_scene():
+    """Every trainable kind visible in 16x16 pixels: smooth-normal diffuse
+    ground, fuzzy metal ball, glass ball, a moving diffuse ball and a fuzzy
+    metal triangle. Returns (scene, camera, {name: material index})."""
+    from rayz_tpu.models.scene import DIFFUSE_UNIT_SPHERE
+
+    b = rt.SceneBuilder()
+    ground = b.add_diffuse(color=(0.5, 0.6, 0.5), method=DIFFUSE_UNIT_SPHERE)
+    metal = b.add_metallic(color=(0.8, 0.7, 0.6), fuzz=0.3)
+    glass = b.add_dielectric(1.5)
+    mover = b.add_diffuse(color=(0.7, 0.3, 0.2), method=DIFFUSE_UNIT_SPHERE)
+    tri = b.add_metallic(color=(0.6, 0.8, 0.9), fuzz=0.1)
+    b.add_sphere((0, -100.5, -1.5), 100.0, ground)
+    b.add_sphere((-0.6, 0.0, -1.5), 0.45, metal)
+    b.add_sphere((0.5, 0.0, -1.4), 0.4, glass)
+    b.add_sphere((0.0, 0.55, -2.0), 0.3, mover, velocity=(0.0, 0.2, 0.0))
+    b.add_triangle((-1.2, -0.4, -2.2), (1.2, -0.4, -2.4), (0.0, 1.2, -2.6),
+                   tri)
+    scene = b.build(dtype=jnp.float64)
+    cam = rt.make_camera(width=16, height=16, vfov=70.0, focus_dist=1.0,
+                         look_from=(0, 0.1, 0), look_at=(0, 0, -1.5),
+                         dtype=jnp.float64)
+    return scene, cam, dict(metal=metal, glass=glass, tri=tri)
+
+
+# (field, flat index or material name, scaled to a flat index below)
+FD_CASES = {
+    "tex_color": ("tex_color", ("tex", "metal", 0)),
+    "mat_fuzz": ("mat_fuzz", ("mat", "metal")),
+    "mat_ior": ("mat_ior", ("mat", "glass")),
+    "sphere_center": ("sphere_center", ("flat", 1 * 3 + 2)),
+    "sphere_radius": ("sphere_radius", ("flat", 2)),
+    "sphere_velocity": ("sphere_velocity", ("flat", 3 * 3 + 1)),
+    "tri_v0": ("tri_v0", ("flat", 0)),
+    "tri_v2": ("tri_v2", ("flat", 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FD_CASES))
+def test_dense_grad_matches_fd(case):
+    """Reverse-mode gradient of the dense engine vs central differences in
+    float64, one parameter of each trainable kind (common random numbers:
+    the key is fixed, so the loss is a deterministic function)."""
+    scene, cam, mats = _fd_scene()
+    field, where = FD_CASES[case]
+    if where[0] == "flat":
+        index = where[1]
+    elif where[0] == "mat":
+        index = mats[where[1]]
+    else:
+        tex = int(scene.mat_texture[mats[where[1]]])
+        index = tex * 3 + where[2]
+    cfg = rt.RenderConfig(spp=2, max_depth=4)
+    target = jnp.zeros((16, 16, 3), jnp.float64)
+    key = jax.random.PRNGKey(11)
+    params = extract_params(scene, (field,))
+    f = lambda p: pixel_loss(p, scene, cam, key, target, cfg)
+    ad = float(jax.grad(f)(params)[field].reshape(-1)[index])
+    fd = float(_fd_grad(f, params, field, index, 1e-6))
+    assert abs(ad) > 1e-7, (case, ad)  # a zero would make the check vacuous
+    assert abs(ad - fd) <= 1e-6 + 5e-3 * abs(fd), (case, ad, fd)
+
+
+@pytest.mark.gpu
+def test_dense_grad_matches_fd_float32(gpu):
+    """On the card, in float32: albedo gradients of the dense engine vs
+    central differences with step 1e-2. With the key fixed the loss is a
+    polynomial in the albedos (products of attenuations along each path),
+    so the step's truncation error is O(1e-4) relative and float32 rounding
+    of the loss O(1e-5); the tolerance is 1e-2 relative to the largest
+    component. (Geometry and fuzz move rays across silhouettes and the
+    metal absorption test, so their float32 differences at a step this
+    large are not a derivative; the float64 tests check them.)"""
+    from rayz_tpu.models.scene import DIFFUSE_UNIT_SPHERE
+
+    b = rt.SceneBuilder()
+    b.add_sphere((0, -100.5, -1.5), 100.0,
+                 b.add_diffuse(color=(0.5, 0.6, 0.5),
+                               method=DIFFUSE_UNIT_SPHERE))
+    b.add_sphere((-0.5, 0.0, -1.5), 0.45,
+                 b.add_metallic(color=(0.8, 0.7, 0.6), fuzz=0.3))
+    b.add_sphere((0.5, 0.0, -1.5), 0.45,
+                 b.add_diffuse(color=(0.3, 0.4, 0.8)))
+    scene = b.build(dtype=jnp.float32)
+    cam = rt.make_camera(width=64, height=64, vfov=70.0, focus_dist=1.0,
+                         look_from=(0, 0.1, 0), look_at=(0, 0, -1.5))
+    cfg = rt.RenderConfig(spp=4, max_depth=4)
+    target = jnp.full((64, 64, 3), 0.3, jnp.float32)
+    key = jax.random.PRNGKey(3)
+    params = extract_params(scene, ("tex_color",))
+    f = jax.jit(lambda p: pixel_loss(p, scene, cam, key, target, cfg))
+    grads = jax.grad(f)(params)
+    for field in params:
+        ad = np.asarray(grads[field]).reshape(-1)
+        fd = np.array([float(_fd_grad(f, params, field, i, 1e-2))
+                       for i in range(ad.size)])
+        err = np.abs(ad - fd).max()
+        print(f"float32 {field}: max |AD - FD| = {err:.3g}, max |FD| = "
+              f"{np.abs(fd).max():.3g}")
+        assert np.abs(fd).max() > 0
+        assert err <= 1e-2 * np.abs(fd).max(), (field, ad, fd)
+
+
+def test_gradients_finite_on_flagship_scene():
+    """Every default trainable gradient is finite on the flagship scene
+    (glass at total internal reflection and normal incidence, motion,
+    checker): the square roots of the refraction branch are NaN-safe."""
+    scene, cam = rt.scenes.random_bouncing(width=32, height=16)
+    cfg = rt.RenderConfig(spp=2, max_depth=4)
+    target = rt.render(scene, cam, jax.random.PRNGKey(0), cfg)
+    g = jax.grad(pixel_loss)(extract_params(scene), scene, cam,
+                             jax.random.PRNGKey(1), target, cfg)
+    for name, leaf in g.items():
+        assert bool(jnp.isfinite(leaf).all()), name
+    assert float(jnp.abs(g["mat_ior"]).sum()) > 0

@@ -2,7 +2,7 @@
 
 The reference is single-process (SURVEY.md §2: no threads/processes/network),
 so there is nothing to match numerically — these tests pin the BEHAVIOR of the
-TPU-native bootstrap: ``initialize()`` must actually call into
+multi-host bootstrap: ``initialize()`` must actually call into
 ``jax.distributed`` in its no-arg auto-detect default (it was a silent no-op
 once), must be idempotent when the launcher already initialized the runtime,
 and must not swallow errors when an explicit coordinator is given.
@@ -15,6 +15,7 @@ import pytest
 
 import rayz_tpu as rt
 from rayz_tpu.parallel import multihost
+from rayz_tpu.utils.compile_cache import cache_dir
 
 
 class _Recorder:
@@ -83,9 +84,9 @@ def test_primary_host_and_global_mesh():
 def test_two_real_processes_loopback():
     """Spawn TWO actual processes with a loopback coordinator (4 virtual CPU
     devices each -> an 8-device global mesh), render over the global mesh,
-    run one recorded train step with psum'd gradients, and assemble the
-    image on host 0 via process_allgather — the real cross-process code path
-    (round-2 verdict missing #3). The deterministic metal scene makes the
+    run one train step with psum'd gradients, and assemble the
+    image on host 0 via process_allgather — the real cross-process code
+    path. The deterministic metal scene makes the
     multi-process image comparable to a single-process reference."""
     import os
     import socket
@@ -103,15 +104,13 @@ def test_two_real_processes_loopback():
         out = os.path.join(td, "host0.npz")
         env = {k: v for k, v in os.environ.items()
                if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
-        # repo only — an inherited site dir (e.g. a TPU plugin autoloader)
-        # would initialize the backend at import, before distributed init
+        # repo only — an inherited site dir (e.g. an accelerator plugin
+        # autoloader) would initialize the backend at import, before
+        # distributed init
         env["PYTHONPATH"] = repo
-        # persistent compile cache: the two workers compile identical
-        # 8-device programs; across test reruns (and for the second
-        # process when timing staggers) this cuts the dominant cost —
-        # interpret-mode kernel compilation — from ~20 min to seconds.
-        env["JAX_COMPILATION_CACHE_DIR"] = os.path.join(
-            tempfile.gettempdir(), "rayz_tpu_jax_cache")
+        # the two workers compile identical 8-device programs: share the
+        # repository's persistent compile cache (rayz_tpu.utils.compile_cache)
+        env["JAX_COMPILATION_CACHE_DIR"] = cache_dir()
         env["JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS"] = "5"
         procs = [subprocess.Popen(
             [sys.executable, worker, str(pid), "2", str(port), out],
@@ -151,8 +150,3 @@ def test_two_real_processes_loopback():
                                 "dense"))
     assert abs(float(data["loss"]) - ref_loss) < 1e-6
     assert np.isfinite(data["tex_color"]).all()
-    # recorded-pp (persistent-path) step across the two processes: same
-    # deterministic loss, zero truncated samples, finite updated params
-    assert abs(float(data["loss_pp"]) - ref_loss) < 1e-5
-    assert int(data["left_pp"]) == 0
-    assert np.isfinite(data["tex_color_pp"]).all()

@@ -92,7 +92,7 @@ def test_render_matches_oracle_materials_mix():
 
 
 def test_render_matches_oracle_six_deep_checker():
-    """Exact checker-nesting semantics (round-3 verdict missing #2): a
+    """Exact checker-nesting semantics: a
     6-deep nested checker — beyond the old 4-level unroll — must render
     identically to the oracle's unbounded recursive chase on the XLA
     engine. Scene.tex_depth (static, computed by the builder) sizes the

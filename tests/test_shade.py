@@ -204,9 +204,9 @@ def test_degenerate_scatter_absorbed(monkeypatch):
     (cornell_box scale) target = point + offset then rounds back to point in
     f32 and the diffuse direction is exactly (0,0,0). Untraced, the next
     bounce misses everything and sky_color normalizes a zero vector -> NaN
-    pixels (observed on real TPU at 128x128x256spp before the guard). Force
-    the degenerate draw and require finite (black) output through the full
-    integrator. The Pallas engines carry the same guard in-kernel."""
+    pixels (observed at 128x128x256spp before the guard). Force the
+    degenerate draw and require finite (black) output through the full
+    integrator. The path-trace kernel carries the same guard."""
     from rayz_tpu.ops import integrator, shade
 
     monkeypatch.setattr(

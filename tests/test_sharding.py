@@ -1,5 +1,5 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh (conftest),
-the TPU-native analogue of a fake distributed backend (SURVEY.md §4)."""
+the analogue of a fake distributed backend (SURVEY.md §4)."""
 
 import jax
 import jax.numpy as jnp
@@ -71,16 +71,19 @@ def test_sharded_train_step_psum_grads():
     assert min(losses) <= losses[0]
 
 
-def test_sharded_recorded_step_matches_single_device():
-    """Mesh train step with engine='recorded' (Pallas record + O(R) replay per
-    shard). On a zero-randomness scene (fuzz-0 metal, jitter off) the radiance
-    is key-independent, so the sharded psum'd gradients must EQUAL the
-    single-device recorded gradients."""
+def _mirror_scene(dtype):
     b = rt.SceneBuilder()
     m = b.add_metallic(color=(0.8, 0.7, 0.6), fuzz=0.0)
     b.add_sphere((0, -100.5, -2), 100.0, m)
     b.add_sphere((0, 0, -2), 0.5, m)
-    scene = b.build(dtype=jnp.float64)
+    return b.build(dtype=dtype)
+
+
+def test_sharded_dense_step_matches_single_device():
+    """Mesh train step with the dense engine on a zero-randomness scene
+    (fuzz-0 metal, jitter off): the radiance is key-independent, so the
+    sharded psum'd gradients must EQUAL the single-device gradients."""
+    scene = _mirror_scene(jnp.float64)
     cam = rt.make_camera(width=16, height=16, vfov=55.0, focus_dist=1.0,
                          look_from=(0, 0, 0), look_at=(0, 0, -1),
                          dtype=jnp.float64)
@@ -91,9 +94,9 @@ def test_sharded_recorded_step_matches_single_device():
 
     from rayz_tpu.diff import pixel_loss
     loss_1, grads_1 = jax.value_and_grad(pixel_loss)(
-        params, scene, cam, jax.random.PRNGKey(0), target, cfg, "recorded")
+        params, scene, cam, jax.random.PRNGKey(0), target, cfg, "dense")
 
-    step = make_train_step(opt, cfg, make_mesh(), engine="recorded")
+    step = make_train_step(opt, cfg, make_mesh(), engine="dense")
     state = opt.init(params)
     p1, _, loss_8 = step(params, state, scene, cam, jax.random.PRNGKey(0),
                          target)
@@ -105,21 +108,24 @@ def test_sharded_recorded_step_matches_single_device():
                                    rtol=1e-10, atol=1e-12)
 
 
-def test_sharded_recorded_step_stochastic_progress():
-    scene, cam = rt.scenes.two_sphere(width=16, height=16, dtype=jnp.float64)
-    cfg = rt.RenderConfig(spp=2, max_depth=3)
-    target = rt.render(scene, cam, jax.random.PRNGKey(7), cfg)
+def test_sharded_dense_step_padded_pixels_match_single_device():
+    """18x10 = 180 pixels over 8 devices: the padding pixels render but are
+    weighted out, so loss and gradients still equal the single device's."""
+    scene = _mirror_scene(jnp.float64)
+    cam = rt.make_camera(width=18, height=10, vfov=55.0, focus_dist=1.0,
+                         look_from=(0, 0, 0), look_at=(0, 0, -1),
+                         dtype=jnp.float64)
+    cfg = rt.RenderConfig(spp=1, max_depth=3, jitter=False)
+    target = jnp.full((10, 18, 3), 0.25, dtype=jnp.float64)
     params = extract_params(scene, ("tex_color",))
-    opt = optax.adam(1e-2)
-    step = make_train_step(opt, cfg, make_mesh(), engine="recorded")
-    s = opt.init(params)
-    p = params
-    losses = []
-    for i in range(4):
-        p, s, l = step(p, s, scene, cam, jax.random.PRNGKey(i), target)
-        losses.append(float(l))
-    assert all(np.isfinite(losses))
-    assert min(losses) <= losses[0]
+    opt = optax.sgd(1e-1)
+    p1, _, l1 = make_train_step(opt, cfg)(
+        params, opt.init(params), scene, cam, jax.random.PRNGKey(2), target)
+    pm, _, lm = make_train_step(opt, cfg, make_mesh())(
+        params, opt.init(params), scene, cam, jax.random.PRNGKey(2), target)
+    np.testing.assert_allclose(float(lm), float(l1), rtol=1e-12)
+    np.testing.assert_allclose(np.asarray(pm["tex_color"]),
+                               np.asarray(p1["tex_color"]), rtol=1e-10)
 
 
 def test_dryrun_multichip_entrypoint():
@@ -130,25 +136,16 @@ def test_dryrun_multichip_entrypoint():
     ge.dryrun_multichip(8)
 
 
-def test_sharded_recorded_pp_matches_single_device():
-    """The persistent-path recorded engine on the mesh: sharded gradients
-    must agree with the single-device recorded-pp step. With the stubbed
-    (zero) interpret-mode PRNG and jitter off, both paths trace identical
-    deterministic samples, so loss and gradients match to float tolerance
-    regardless of the per-device key folding."""
-    scene, cam = rt.scenes.two_sphere(width=16, height=16, dtype=jnp.float32)
-    cfg = rt.RenderConfig(spp=2, max_depth=3, jitter=False)
-    target = jnp.zeros((16, 16, 3), jnp.float32)
-    params = extract_params(scene, ("tex_color",))
-    opt = optax.adam(1e-2)
-    key = jax.random.PRNGKey(5)
+def test_sharded_kernel_matches_single_device_stochastic():
+    """The kernel's PRNG counter holds the GLOBAL pixel index, so the
+    8-device sharded render (interpret mode) equals the one-device render
+    even with jitter, diffuse and glass drawing random numbers."""
+    from rayz_tpu.ops.megakernel import render_pallas, render_pallas_sharded
 
-    step_1 = make_train_step(opt, cfg, None, engine="recorded-pp")
-    p1, _, l1 = step_1(params, opt.init(params), scene, cam, key, target)
-
-    step_m = make_train_step(opt, cfg, make_mesh(), engine="recorded-pp")
-    pm, _, lm = step_m(params, opt.init(params), scene, cam, key, target)
-
-    assert abs(float(l1) - float(lm)) < 1e-6
-    np.testing.assert_allclose(np.asarray(p1["tex_color"]),
-                               np.asarray(pm["tex_color"]), atol=1e-6)
+    scene, cam = rt.scenes.three_sphere(width=20, height=12)
+    cfg = rt.RenderConfig(spp=3, max_depth=4)
+    a = np.asarray(render_pallas_sharded(scene, cam, 11, cfg, make_mesh(),
+                                         interpret=True))
+    b = np.asarray(render_pallas(scene, cam, 11, cfg, interpret=True))
+    np.testing.assert_array_equal(a, b)
+    assert a.std() > 0.01
